@@ -113,21 +113,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         if result.restarts:
             print(f"(recovered from {result.restarts} worker failure(s))")
         linear = result.image
+        platform = result.platform
     else:
         import jax
 
-        if jax.default_backend() not in ("cpu",):
-            # the integrator megakernel compiles once per (scene shape,
-            # resolution): ~10 s for the streaming kernel, up to ~2 min for
-            # the unrolled small-scene kernel (PERF.md). The persistent
-            # compilation cache makes every later process load it in
-            # seconds, but a truly cold first render must not look hung.
-            print(
-                "(first render of this scene/resolution compiles the TPU "
-                "kernel: up to ~2 min, cached for all later runs)",
-                flush=True,
-            )
-
+        platform = jax.default_backend()
         from plutracer_tpu.render.progressive import render_with_checkpoint
 
         if profile_dir:
@@ -150,7 +140,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     from plutracer_tpu.ops.tonemap import postprocess_image
 
     pp_start = time.perf_counter()
-    img = np.array(postprocess_image(linear))  # mutable copy for the watermark
+    # the supervised worker tonemaps on its device: this process stays off it
+    img = np.array(result.display if supervise else postprocess_image(linear))
     pp_end = time.perf_counter()
     print("... finished")
 
@@ -162,7 +153,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         f"init took: {init_ms}ms\n"
         f"render took: {render_ms}ms\n"
         f"postprocess took: {pp_ms}ms\n"
-        f"tpu-native\n"
+        f"{platform}\n"
     )
     print(watermark, end="")
 

@@ -6,7 +6,7 @@ the 2-element case special-cased (src/surfaces/bvh_tree.cpp:7-36); traversal
 tests the node AABB and always visits both children, nearest t wins
 (bvh_tree.cpp:39-76).
 
-TPU-first redesign: the tree is flattened to arrays in depth-first order
+Array-first redesign: the tree is flattened to arrays in depth-first order
 with skip links, and traversal is an iterative `lax.while_loop` per ray
 batch over those arrays — no recursion, no pointers:
 

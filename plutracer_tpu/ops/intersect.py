@@ -66,7 +66,7 @@ def box_t(o, d, bmin, bmax):
     The parallel-ray guard substitutes 1e-12 for |d| < 1e-12 (not the
     historical 1e-20-for-exact-zero): at scene scale both make the slab
     interval effectively (-inf, inf) on that axis — same accept/reject —
-    but 1/1e-20 overflows TPU's approximate reciprocal to +inf, and that
+    but 1/1e-20 overflows an approximate reciprocal to +inf, and that
     inf residual NaN-poisons reverse-mode gradients through the
     differentiable-t recompute (0 * inf on masked lanes). Degenerate
     shading frames (semantics.py) emit directions with EXACT zero
@@ -193,21 +193,17 @@ def intersect_closest(scene, o, d, t_max: float = T_MAX) -> Hit:
 
 
 def _resolve_backend(options) -> str:
-    """auto = Pallas brute force on TPU (all P), XLA brute force on CPU.
+    """auto = the Pallas (Triton) kernel on a GPU, XLA brute force elsewhere.
 
-    The BVH path is kept as a semantic oracle and for CPU AD experiments,
-    but is NEVER auto-selected: measured on TPU v5e at B=262k the lockstep
-    skip-link while_loop takes 3076 ms/query at P=1283 vs 12.6 ms for the
-    type-specialized Pallas brute kernel (244x) — per-step per-ray node
-    gathers dominate it. The brute kernel is compute-bound at ~3 TFLOP/s
-    and scales linearly in P; it wins comfortably through at least P~10^4.
-    """
+    On an H100 the kernel beats XLA's brute force at every primitive count
+    measured, from 9 to 102,403, by about 2x end to end (PERF.md, "Closest
+    hit: kernel vs XLA"), so the choice does not depend on the scene. The
+    BVH path is a semantic oracle and serves CPU AD experiments; it is
+    never auto-selected (its lockstep skip-link walk gathers one node per
+    ray per step)."""
     backend = getattr(options, "intersect_backend", "auto")
     if backend == "auto":
-        import jax
-
-        plat = jax.default_backend()
-        backend = "pallas" if plat not in ("cpu",) else "xla"
+        backend = "pallas" if jax.default_backend() == "gpu" else "xla"
     return backend
 
 
@@ -222,30 +218,21 @@ def query_lite(scene, o, d, options):
     if backend == "pallas" and scene.prims_packed is not None:
         from plutracer_tpu.ops.pallas.intersect_kernel import intersect_lite_pallas
 
-        import jax
-
-        # stop_gradient EVERY kernel input (rays AND the packed table):
-        # pallas_call has no usable JVP rule, and under value_and_grad a
-        # symbolically-nonzero tangent on ANY input invokes it (crashes
-        # with a pallas grid_context assertion). The table tangent arises
-        # when the whole SCENE is a vjp argument — e.g. the megakernel's
-        # custom_vjp backward does jax.vjp(f, scene, o, d), which gives
-        # every scene leaf a tangent (r5: this crashed the compiled
-        # full-depth megakernel VJP on TPU; training never hit it because
-        # make_train_step differentiates the params dict only). The
-        # winner (found, prim) is discrete and t is recomputed
-        # differentiably downstream (query_closest).
+        # stop_gradient EVERY kernel input (rays AND the packed tables):
+        # pallas_call has no JVP rule, and under value_and_grad a
+        # symbolically-nonzero tangent on any input invokes it. The table
+        # tangent arises when the whole scene is a vjp argument. The winner
+        # (found, prim) is discrete and t is recomputed differentiably
+        # downstream (query_closest, render/integrator.py).
         found, prim, t = intersect_lite_pallas(
-            scene,
             jax.lax.stop_gradient(o),
             jax.lax.stop_gradient(d),
             jax.tree.map(jax.lax.stop_gradient, scene.prims_packed),
+            interpret=getattr(options, "pallas_interpret", False),
         )
         return found, prim, jax.lax.stop_gradient(t)
     if backend == "bvh" and scene.bvh is not None:
         from plutracer_tpu.ops.bvh import bvh_closest
-
-        import jax
 
         found, prim, t = bvh_closest(
             scene, scene.bvh,
@@ -326,9 +313,8 @@ def _box_detail(p, bmin, bmax):
     sign = jnp.sign(np_)
     sign = jnp.where(sign == 0.0, 1.0, sign)
 
-    # tiny-axis dynamic indexing as arithmetic selects: take_along_axis on a
-    # width-3 axis lowers to a gather costing ~3.7 ms/call at B=262k on TPU
-    # (profiler-verified); these selects fuse into neighbors for free
+    # tiny-axis dynamic indexing as arithmetic selects (a width-3
+    # take_along_axis lowers to a gather; these selects fuse into neighbors)
     def pick3(v, idx):
         return jnp.where(
             idx == 0, v[..., 0], jnp.where(idx == 1, v[..., 1], v[..., 2])
@@ -373,8 +359,7 @@ def hit_detail_rows(o, d, t, prim, found, rows) -> Hit:
     """Shading detail from pre-gathered primitive rows (ops.tables.PrimRows).
 
     One packed-row gather upstream replaces the ~9 per-field gathers this
-    function used to issue (the per-field gathers plus their layout copies
-    dominated TPU bounce time)."""
+    function used to issue."""
     a = rows.a
     b = rows.b
     c = rows.c

@@ -115,8 +115,8 @@ def surface_pdf_rows(rows: PrimRows, p, wi, options: RenderOptions):
         dist2 = ts * ts
     denom = jnp.abs(_dot(det.norm, -wi)) * rows.area
     # safe_div: the plain transpose divides by denom**2 = 1e-40, which
-    # FTZ flushes to 0 -> 0/0 NaN on zero-cotangent lanes (the r2-r4
-    # TPU scan-backward NaN's largest source — see ops/safemath.py)
+    # FTZ flushes to 0 -> 0/0 NaN on zero-cotangent lanes (the largest
+    # source of NaN gradients before the guard — see ops/safemath.py)
     pdf = safemath.safe_div(dist2, jnp.maximum(denom, 1e-20))
     return jnp.where(found, pdf, 0.0)
 

@@ -1,1 +1,1 @@
-"""Pallas TPU kernels for the hot ops."""
+"""Pallas kernels (Triton route, GPU) for the hot ops."""

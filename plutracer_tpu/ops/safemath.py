@@ -1,7 +1,7 @@
 """Derivative-guarded elementary ops for the differentiable path.
 
-Root cause of the r2-r4 "TPU scan-backward NaN" (measured, r5): XLA
-flushes float32 denormals to zero (FTZ) on TPU *and* CPU, and the
+Root cause of NaN gradients through the bounce scan: XLA flushes
+float32 denormals to zero (FTZ) on accelerators and CPU, and the
 reverse-mode rule of ``x / y`` contains ``-ct * x / y**2``. Guard floors
 like ``jnp.maximum(y, 1e-20)`` keep the PRIMAL finite, but
 ``y**2 = 1e-40`` flushes to 0, so a lane whose cotangent is already
@@ -27,7 +27,7 @@ zero-cotangent lanes yield exact zeros.
 
 No reference counterpart: the reference is forward-only C++
 (src/renderer.cpp); this module exists because jax.grad through the
-estimator is a TPU-native capability the reference lacks.
+estimator is a capability the reference lacks.
 """
 
 from __future__ import annotations

@@ -1,11 +1,9 @@
 """Packed gather tables.
 
-TPU profiling shows the integrator's cost is dominated not by intersection
-math but by dozens of small per-field gathers (scene.prim_a[prim],
-scene.mat_color[mat], ...) and the layout-conversion copies XLA inserts
-around them (~0.5-3.7 ms each at B=262k). Packing each entity's fields into
-one row matrix turns ~40 gathers per bounce into ~5: gather one (B, W) row
-block, then slice columns (free — same layout).
+The integrator reads dozens of per-field columns per hit
+(scene.prim_a[prim], scene.mat_color[mat], ...). Packing each entity's
+fields into one row matrix turns ~40 gathers per bounce into ~5: gather one
+(B, W) row block, then slice columns (free — same layout).
 
 Packing happens at *trace time* from the SceneArrays fields, so gradients
 flow through the pack into the original differentiable leaves
@@ -28,16 +26,13 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-# Row-gather strategy thresholds. TPU gathers from tiny tables lower to
-# VMEM-read-bound scalar loops (profiler: 3-6 ms per gather at B=786k from
-# an 8-row table — 1/3 of total render time); a select chain or a one-hot
-# matmul computes the same rows 3-6x faster and fuses into neighbors.
-_SELECT_MAX = 16  # unrolled where-chain (VPU, fuses into consumers)
-# one-hot matmul on the MXU (HIGHEST = exact for f32). Measured on TPU v5e
-# at B=262144, W=32: one-hot 2.80 ms vs native gather 3.31 ms at P=64..259;
-# parity (3.17 vs 3.26) at P=512 — where the (B, P) one-hot also costs
-# 512 MB of HBM. Threshold set just above the largest bundled scene (test1,
-# 259 prims); beyond it the native gather is as fast and O(B*W) memory.
+# Row-gather strategy thresholds: a select chain (tiny tables) or a one-hot
+# matmul (small tables) computes the same rows as a gather and fuses into
+# its neighbours. Whether each tier still beats a plain gather on the GPU
+# is not measured (ROADMAP Queue 1 item 6).
+_SELECT_MAX = 16  # unrolled where-chain (fuses into consumers)
+# one-hot matmul (HIGHEST = exact for f32, no TF32); the (B, P) one-hot
+# grows with P, so above this size the native gather is used
 _ONEHOT_MAX = 320
 
 

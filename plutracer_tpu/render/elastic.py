@@ -3,8 +3,8 @@
 The reference has NO failure handling (SURVEY §5): `main.cpp` throws bare
 exceptions on malformed scenes and a crash mid-render loses everything
 (src/renderer.cpp:98-151 streams tiles into an in-memory framebuffer that
-dies with the process). The TPU-native redesign makes the stratified PASS
-the unit of migration:
+dies with the process). Here the stratified PASS is the unit of
+migration:
 
 - Pass ``s`` is a *full-image* program keyed by ``fold_in(key, s)`` — the
   exact per-pass sample stream of ``renderer.render_passes`` — so a pass
@@ -15,8 +15,8 @@ the unit of migration:
   accumulates them in stratum order with sequential float32 adds — the
   same reduction order as the single-device ``lax.scan`` accumulator.
 - Render state is therefore device-topology-free: ``(accum, next_pass,
-  seed)``. A job checkpointed on an 8-chip mesh resumes on 4 chips, 1
-  chip, or a CPU host and the final image is unchanged (the supervisor
+  seed)``. A job checkpointed on an 8-device mesh resumes on 4 devices,
+  1 device, or a CPU host and the final image is unchanged (the supervisor
   tests assert bit-equality through a crash + re-mesh history).
 
 ``render/supervisor.py`` builds failure *detection* (exit codes +
@@ -35,6 +35,7 @@ import numpy as np
 from jax.sharding import Mesh
 from jax.sharding import PartitionSpec as P
 
+from plutracer_tpu.parallel.sharded import check_vma
 from plutracer_tpu.render.progressive import load_state, save_state
 from plutracer_tpu.render.renderer import _trace_stratum, pixel_centers
 from plutracer_tpu.semantics import DEFAULT_OPTIONS, RenderOptions
@@ -82,9 +83,7 @@ def pass_stack(
             mesh=mesh,
             in_specs=(P("spp"),),
             out_specs=P("spp"),
-            # same rationale as parallel/sharded.render_sharded: pallas_call
-            # outputs carry no vma annotations on TPU
-            check_vma=jax.default_backend() == "cpu",
+            check_vma=check_vma(options),
         )
     )(strata_pad)
     return np.asarray(out)

@@ -22,14 +22,11 @@ material/light choices are masked selects. Each bounce issues ONE batched
 closest-hit query over 3B rays (shadow + NEE-BSDF + extension, all
 originating at the shading point); the extension hit is carried into the
 next iteration. All entity lookups go through packed-row gathers
-(ops.tables) — one gather per table per bounce instead of one per field,
-which profiling showed dominated TPU time. RNG is counter-based: one key
-per batch, folded with the bounce index.
+(ops.tables) — one gather per table per bounce instead of one per field.
+RNG is counter-based: one key per batch, folded with the bounce index.
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -69,8 +66,8 @@ def _nee_contributions(
     # the weight or the contribution to 0/1 at the extremes), but inf
     # NEVER materializes — an inf residual saved by the bounce scan makes
     # the whole reverse pass NaN via 0 * inf even on fully-masked lanes
-    # (measured: ~40-50% of TPU train steps at max_bounces=8 lost their
-    # entire mat_color gradient to this before the clamp).
+    # (before the clamp, ~40-50% of train steps at max_bounces=8 lost
+    # their entire mat_color gradient to this).
     clipp = lambda x: jnp.clip(x, 1e-12, 1e9)
 
     # ---- light-sampling strategy ----
@@ -163,80 +160,6 @@ def estimate_direct(scene, hit, frame, mtype, albedo, wwo, li, u, options):
     return cl + cb
 
 
-def _resolve_integrator_backend(scene, options) -> str:
-    """auto = Pallas megakernel on TPU for qualifying scenes, XLA else.
-
-    The megakernel (ops/pallas/integrator_kernel.py) runs the whole bounce
-    loop in one program with all per-ray state in VMEM — the XLA scan path
-    is HBM-bandwidth-bound at ~900 fusions/bounce (PERF.md)."""
-    from plutracer_tpu.ops.pallas.integrator_kernel import megakernel_eligible
-
-    backend = getattr(options, "integrator_backend", "auto")
-    if backend == "auto":
-        import jax
-
-        if jax.default_backend() != "cpu" and megakernel_eligible(
-            scene, options
-        ):
-            return "pallas"
-        return "xla"
-    if backend == "pallas" and not megakernel_eligible(scene, options):
-        raise ValueError(
-            "integrator_backend='pallas' forced but the scene exceeds the "
-            "megakernel's static limits (see megakernel_eligible)"
-        )
-    return backend
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(0,))
-def _ray_color_pallas_ad(options, scene, o, d, key):
-    """Megakernel forward with an XLA-recompute backward.
-
-    The Pallas kernel has no AD rule; this wrapper makes jax.grad through
-    the default TPU path *correct* (the backward re-runs the XLA
-    integrator's VJP with the same key, so gradients are exactly the XLA
-    path's — both paths draw identical uniforms). Forward-only callers pay
-    nothing; gradient callers pay one extra (fast) Pallas forward on top
-    of the XLA fwd+bwd they would have paid anyway. Training loops that
-    never need the Pallas forward should still pin
-    integrator_backend='xla' (parallel/sharded.make_train_step does)."""
-    from plutracer_tpu.ops.pallas.integrator_kernel import ray_color_pallas
-
-    return ray_color_pallas(
-        scene, o, d, key, options,
-        interpret=getattr(options, "pallas_interpret", False),
-    )
-
-
-def _ray_color_pallas_fwd(options, scene, o, d, key):
-    from plutracer_tpu.ops.pallas.integrator_kernel import ray_color_pallas
-
-    out = ray_color_pallas(
-        scene, o, d, key, options,
-        interpret=getattr(options, "pallas_interpret", False),
-    )
-    return out, (scene, o, d, key)
-
-
-def _ray_color_pallas_bwd(options, res, ct):
-    scene, o, d, key = res
-    xla_options = options.replace(integrator_backend="xla")
-
-    def f(scene, o, d):
-        return ray_color(scene, o, d, key, xla_options)
-
-    _, vjp = jax.vjp(f, scene, o, d)
-    d_scene, d_o, d_d = vjp(ct)
-    # key is a PRNG/integer input: its cotangent type is float0
-    import numpy as np
-
-    d_key = np.zeros(key.shape, dtype=jax.dtypes.float0)
-    return d_scene, d_o, d_d, d_key
-
-
-_ray_color_pallas_ad.defvjp(_ray_color_pallas_fwd, _ray_color_pallas_bwd)
-
-
 def ray_color(
     scene,
     o,
@@ -247,16 +170,13 @@ def ray_color(
 ):
     """Radiance for a batch of primary rays. o, d: (B,3). Returns (B,3).
 
-    With terms=True (XLA path only; diagnostics — tools/term_dump.py)
+    With terms=True (diagnostics — tools/term_dump.py)
     additionally returns a (max_bounces, 3, B, 3) per-bounce split of the
     radiance by contribution site, mirroring the instrumented reference
     build (tools/refbuild/build_dump.sh): term 0 = emitted-at-vertex
     (renderer.cpp:66), 1 = NEE light strategy, 2 = NEE BSDF strategy
     (renderer.cpp:5-51). sum(terms) == the returned L exactly.
     """
-    if _resolve_integrator_backend(scene, options) == "pallas":
-        assert not terms, "terms split is XLA-path-only"
-        return _ray_color_pallas_ad(options, scene, o, d, key)
     B = o.shape[0]
     num_lights = scene.light_type.shape[0]
     tables = pack_tables(scene)
@@ -270,12 +190,10 @@ def ray_color(
         rows0 = gather_prim(tables, prim0)
         t0d = intersect.prim_t_rows(o, d, rows0)
         # accept the differentiable recompute ONLY when it agrees the ray
-        # hits: on knife-edge lanes the Pallas winner and the XLA accept
+        # hits: on knife-edge lanes the kernel's winner and the XLA accept
         # rules can disagree, and taking the recompute's _BIG sentinel
         # onto a found=True lane puts p at ~4e37 — whose downstream dot
-        # products overflow to inf and NaN the whole backward (r5
-        # root-cause of the "TPU scan-backward NaN", measured: the 1e37
-        # p's appear at bounce 2, the first inf at bounce 5)
+        # products overflow to inf and NaN the whole backward
         t0 = jnp.where(found0 & (t0d < intersect.T_MAX), t0d, t0)
 
     def body(carry, i):
@@ -350,7 +268,7 @@ def ray_color(
         # degenerate x-face wall frames grow |cos|/pdf without bound, and
         # at max_bounces=8 the f32 product can overflow to inf on a LIVE
         # lane — the primal stays masked-finite but every term's backward
-        # then dies of 0 * inf (measured on TPU: ~40% of train steps had
+        # then dies of 0 * inf (before the clamp ~40% of train steps had
         # fully-NaN mat_color gradients). Radiance from a >=1e12-weight
         # path is saturated garbage in any output; the clamp is invisible
         # below it (semantics.py silent-guards).

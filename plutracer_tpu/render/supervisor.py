@@ -8,20 +8,26 @@ jobs:
 
 - **Crash** (nonzero exit / killed process): detected by the exit code.
 - **Hang** (wedged device, stuck collective): detected by a liveness
-  heartbeat — the worker touches a heartbeat file after every
-  checkpointed chunk; a stale heartbeat past ``heartbeat_timeout`` gets
-  the worker's process group killed.
+  heartbeat — the worker touches a heartbeat file at start, once the
+  scene is compiled, and after every checkpointed chunk; a stale
+  heartbeat past ``heartbeat_timeout`` gets the worker's process group
+  killed. The timeout must cover the first chunk, which includes the
+  cold compile of the render program.
 
 Either way the supervisor relaunches the worker, which resumes from the
 last checkpoint written by ``render/elastic.py``. Because the elastic
 checkpoint is device-topology-free, each relaunch may use a DIFFERENT
-device count (``device_counts`` — e.g. a pod that lost a host resumes on
-the survivors) and the final image is still bit-identical to the same
+device count (``device_counts`` — e.g. a job that lost devices resumes
+on the survivors) and the final image is still bit-identical to the same
 supervised job run with no failures at all (the tests assert this
 through crash, hang and re-mesh histories; comparisons are
 worker-to-worker because an interpreter configured differently — e.g. a
 site hook that pre-tunes jax — may legitimately differ in float
 rounding from this one).
+
+The supervising process never touches JAX's devices: only the worker
+opens the accelerator, which keeps to one process per card. The worker
+also returns the tonemapped image, so the CLI needs no device either.
 
 Worker entry point: ``python -m plutracer_tpu.render.supervisor --worker …``
 (kept in-module so the subprocess needs nothing beyond the package).
@@ -49,6 +55,8 @@ class WorkerFailure(RuntimeError):
 @dataclass
 class SuperviseResult:
     image: np.ndarray  # linear (H, W, 3)
+    display: np.ndarray  # tonemapped (H, W, 3) in [0, 1]
+    platform: str  # the worker's JAX platform
     restarts: int
     events: List[Tuple[str, str]] = field(default_factory=list)
 
@@ -73,7 +81,7 @@ def supervise_render(
     *,
     scene_args: Optional[Sequence[str]] = None,
     max_restarts: int = 3,
-    heartbeat_timeout: float = 120.0,
+    heartbeat_timeout: float = 900.0,
     checkpoint_every: int = 8,
     device_counts: Optional[Sequence[Optional[int]]] = None,
     inject_fault: Optional[str] = None,
@@ -82,7 +90,7 @@ def supervise_render(
     """Run a supervised render; returns the finished linear image.
 
     ``device_counts[i]`` is the CPU-mesh device count for launch ``i``
-    (None = the worker's natural devices — on TPU, the real chips); the
+    (None = the worker's natural devices, e.g. the GPUs); the
     last entry is reused for later launches. ``inject_fault`` (fault-spec
     for PLUTRACER_FAULT, e.g. "crash:4") is applied to the FIRST launch
     only — the test hook for the recovery path.
@@ -128,18 +136,22 @@ def supervise_render(
         for a in scene_args or []:
             args += ["--scene-arg", a]
         # the heartbeat must predate the launch so a worker that wedges
-        # before its first chunk still times out
+        # before its first chunk still times out; a result from an earlier
+        # launch must not pass for this one's
         with open(hb, "w"):
             pass
+        if os.path.exists(out):
+            os.remove(out)
         proc, log = _launch(args, env, log_path)
         events.append(("launch", f"#{launch} devices={count} pid={proc.pid}"))
         failed = None
         while True:
             rc = proc.poll()
             if rc is not None:
-                if rc == 0:
-                    break
-                failed = f"exit code {rc}"
+                if rc != 0:
+                    failed = f"exit code {rc}"
+                elif not os.path.exists(out):
+                    failed = "exit code 0 without a result"
                 break
             if time.time() - os.path.getmtime(hb) > heartbeat_timeout:
                 failed = f"heartbeat stale > {heartbeat_timeout}s"
@@ -154,7 +166,9 @@ def supervise_render(
         if failed is None:
             z = np.load(out)
             events.append(("done", f"after {restarts} restart(s)"))
-            return SuperviseResult(z["linear"], restarts, events)
+            return SuperviseResult(
+                z["linear"], z["display"], str(z["platform"]), restarts, events
+            )
         events.append(("failure", failed))
         restarts += 1
     raise WorkerFailure(
@@ -216,6 +230,7 @@ def _worker(argv: List[str]) -> int:
 
     desc = load_scene_file(a.scene, ["/res", a.res, *a.scene_arg])
     scene = compile_scene(desc)
+    beat_now()  # the first chunk (with its cold compile) starts here
 
     def beat(next_pass: int) -> None:
         beat_now()
@@ -225,8 +240,17 @@ def _worker(argv: List[str]) -> int:
         checkpoint_path=a.ckpt, checkpoint_every=a.checkpoint_every,
         on_chunk=beat,
     )
+    import jax
+
+    from plutracer_tpu.ops.tonemap import postprocess_image
+
     tmp = a.out + ".tmp"
-    np.savez(tmp, linear=np.asarray(img, np.float32))
+    np.savez(
+        tmp,
+        linear=np.asarray(img, np.float32),
+        display=np.asarray(postprocess_image(img), np.float32),
+        platform=jax.default_backend(),
+    )
     os.replace(tmp + ".npz", a.out)
     return 0
 

@@ -118,8 +118,9 @@ class SceneArrays:
 
     # acceleration structures (derived; None until built by compile_scene)
     bvh: Any = None  # ops.bvh.BvhArrays
-    prims_packed: Any = None  # (P_pad, 16) table for the Pallas kernel
-    prims_mega: Any = None  # MegaPack for the streaming integrator kernel
+    # per-type tables for the closest-hit kernel
+    # (ops.pallas.intersect_kernel.PrimTables)
+    prims_packed: Any = None
 
     # phantom-hit culling (ops.bvh.parent_bounds_tables; reference bvh_tree
     # internal-node semantics, collapsed to the leaf's parent AABB by
@@ -152,27 +153,6 @@ jax.tree_util.register_pytree_node(
         **dict(zip(_SCENE_CHILD_FIELDS, ch)), cull_rows=aux
     ),
 )
-
-
-@_register
-@dataclasses.dataclass
-class MegaPack:
-    """Primitive tables for the STREAMING integrator megakernel
-    (ops/pallas/integrator_kernel.py): one (Pk_pad, 40) table per primitive
-    type — cols 0:28 are the tables.pack_tables prim layout, cols 32:38
-    hold the chunk's cluster AABB (duplicated per row) for whole-tile
-    culling. Rows are Morton-ordered by centroid within each type and
-    padded to a chunk multiple with never-hit rows. Table SHAPES are the
-    static segment metadata — empty types have shape (0, 40). `light_prim`
-    is scene.light_prim remapped into the permuted index space (the
-    kernel's winner ids index the concatenated [sphere | box | tri]
-    tables)."""
-
-    sph: Any  # (Ps_pad, 40) f32
-    box: Any  # (Pb_pad, 40) f32
-    tri: Any  # (Pt_pad, 40) f32
-    light_prim: Any  # (L,) i32 remapped carrier ids
-    scene_to_mega: Any = None  # (P,) i32 scene row -> packed id (wavefront)
 
 
 # ---------------- host-side description ----------------

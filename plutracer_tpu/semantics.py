@@ -70,7 +70,7 @@ replaces a reference NaN/Inf with a finite value; full audit):
   sign(0) -> +1 where the reference's `np.x < 0 ? -1 : 1` chain
   (src/surfaces/box.cpp:44-60) also yields +1 — matching, but made explicit
   because jnp.sign (unlike the C ternary) returns 0 there.
-- throughput clamp (render/integrator.py + both megakernels): the
+- throughput clamp (render/integrator.py): the
   per-bounce weight f*|cos|/pdf is clamped at 1e12 and the running path
   throughput at 1e16. The reference's degenerate x-face box frames
   (box.cpp:29-33) make the weight unbounded; at 8 bounces the f32 product
@@ -84,13 +84,13 @@ replaces a reference NaN/Inf with a finite value; full audit):
   triangle_t's det==0 reject) — all on paths where the reference relies
   on IEEE Inf propagating into comparisons that then reject the lane;
   ours rejects the lane explicitly with a mask instead.
-- derivative-side clamps (ops/safemath.py, r5): safe_div / safe_recip /
+- derivative-side clamps (ops/safemath.py): safe_div / safe_recip /
   safe_rsqrt keep primals BIT-IDENTICAL to the plain ops but clamp the
   denominators inside their custom_jvp rules — guard floors of the
   1e-20/1e-30 class have transposes that square the denominator (FTZ
   flushes the square to 0 -> 0/0 NaN on zero-cotangent lanes) or
   overflow f32 (rsqrt's u**-1.5). Forward images are unaffected.
-- differentiable-t sentinel guard (r5): under non-XLA intersect
+- differentiable-t sentinel guard: under non-XLA intersect
   backends, t is recomputed at the kernel's winning primitive; the
   recompute is accepted only where it agrees the ray hits (t < T_MAX),
   else the kernel's t is kept. On knife-edge lanes where the backends
@@ -124,45 +124,18 @@ class RenderOptions:
     dtype: str = "float32"
 
     # --- execution backend for closest-hit queries ---
-    # "auto": Pallas kernel on TPU, XLA brute force elsewhere;
-    # "xla" | "pallas" | "bvh" force a specific path (all agree exactly).
+    # "auto": the Pallas (Triton) kernel on a GPU, XLA brute force
+    # elsewhere; "xla" | "pallas" | "bvh" force a specific path (all agree
+    # per query).
     intersect_backend: str = "auto"
-
-    # --- execution backend for the whole bounce loop ---
-    # "auto": the Pallas integrator megakernel on TPU when the scene
-    # qualifies (small tables, no image textures — see
-    # ops/pallas/integrator_kernel.megakernel_eligible), XLA elsewhere;
-    # "xla" forces the reference scan path; "pallas" forces the megakernel
-    # (raises if the scene does not qualify). jax.grad works through every
-    # backend: the megakernel path carries a custom_vjp whose backward
-    # re-runs the XLA integrator's VJP (integrator._ray_color_pallas_ad);
-    # training loops that never consume the Pallas forward should still
-    # pin "xla" to skip the extra forward (make_train_step does).
-    integrator_backend: str = "auto"
-    # big-P (streaming) scenes: per-bounce wavefront dispatch (one-bounce
-    # kernel + host loop that can re-sort the ray carry between bounces)
-    # vs the monolithic all-bounces-in-one-program stream kernel
-    # (default). Identical per-ray math either way. Measured on TPU v5e
-    # (PERF.md r4): the split alone costs 6-20%; ANY inter-bounce reorder
-    # (argsort or cumsum compaction) costs ~9 ms/bounce at B=65k while
-    # buying nothing — diffuse bounce directions are isotropic, so
-    # origin-sorted tiles still union-hit every cluster AABB and the
-    # per-tile cull stays a wash. Kept as infrastructure: the one-bounce
-    # kernel is the required shape for HBM-streamed prim tables beyond
-    # the VMEM P ceiling.
-    stream_wavefront: bool = False
-    # wavefront inter-bounce reorder: "morton" (full spatial sort of live
-    # lanes), "compact" (cumsum partition: dead lanes to whole-dead tiles
-    # only — much cheaper than a sort), "none"
-    stream_sort: str = "morton"
-    # run Pallas kernels in interpret mode (tests on CPU; never on TPU)
+    # run Pallas kernels in interpret mode (CPU tests only)
     pallas_interpret: bool = False
     # rematerialize the bounce-scan body in reverse mode (jax.checkpoint):
     # the backward recomputes each bounce from its carry instead of saving
     # every intermediate, cutting residual memory ~mb-fold for ~1.3x
-    # forward compute. Needed for big-batch gradients: the 1024^2 flagship
-    # backward (B=1.05M rays) otherwise wants 17.8 GB of HBM residuals on
-    # a 16 GB chip. Off by default (smaller batches fit and run faster).
+    # forward compute. For big-batch gradients such as the 1024^2
+    # flagship backward (B=1.05M rays), whose saved residuals grow with
+    # B x bounces. Off by default (smaller batches fit and run faster).
     remat_bounces: bool = False
 
     def replace(self, **kw) -> "RenderOptions":

@@ -2,7 +2,7 @@
 
 The reference's observability is wall-clock phase prints + a watermark
 (src/main.cpp:146-204) and per-thread tile counts (src/renderer.cpp:140-145).
-TPU-native equivalents:
+Equivalents here:
 
 - ``PhaseTimer``: phase wall-clock timing (init/render/postprocess parity)
   with a structured report.

@@ -10,14 +10,14 @@ from plutracer_tpu.semantics import DEFAULT_OPTIONS
 
 
 @pytest.fixture(scope="module")
-def scene():
-    d = load_scene_file("/root/reference/scenes/cornell-box.urn", ["/res", "24x24"])
+def scene(scenes_dir):
+    d = load_scene_file(str(scenes_dir / "demo-box.urn"), ["/res", "24x24"])
     return compile_scene(d)
 
 
 @pytest.fixture(scope="module")
-def room_scene():
-    d = load_scene_file("/root/reference/scenes/room.urn", ["/res", "24x18"])
+def grid_scene(scenes_dir):
+    d = load_scene_file(str(scenes_dir / "sphere-grid.urn"), ["/res", "24x18"])
     return compile_scene(d)
 
 
@@ -28,11 +28,12 @@ def _render(scene, backend, w=24, h=24, n=1):
     )
 
 
-def test_bvh_backend_matches_xla_no_dielectrics(room_scene):
-    """room.urn has no glass: every accept test is numerically robust, so
-    backends produce near-identical images (ulp-level t drift only)."""
-    a = _render(room_scene, "xla", h=18, n=4)
-    b = _render(room_scene, "bvh", h=18, n=4)
+def test_bvh_backend_matches_xla_no_dielectrics(grid_scene):
+    """sphere-grid.urn has no glass: every accept test is numerically
+    robust, so backends produce near-identical images (ulp-level t drift
+    only)."""
+    a = _render(grid_scene, "xla", h=18, n=4)
+    b = _render(grid_scene, "bvh", h=18, n=4)
     diff = np.abs(a - b)
     assert np.quantile(diff, 0.99) < 1e-3, np.quantile(diff, 0.99)
 

@@ -1,9 +1,7 @@
 """Smoke tests for the flagship tools so they can't rot.
 
-tools/inverse_flagship.py produced INVERSE_r03.json on TPU; this drives
-the same code path end-to-end on CPU at toy scale (the round-2 artifact
-was missing precisely because the tool was never exercised outside its
-one-off run).
+This drives tools/inverse_flagship.py's code path end-to-end on CPU at
+toy scale, so the tool is exercised outside its full-size runs.
 """
 
 import json

@@ -2,7 +2,7 @@
 
 Goldens are small fixed-seed CPU renders (tools/make_goldens.py). The RNG is
 counter-based, so a same-backend re-render reproduces the goldens almost
-exactly; the loose tail tolerance absorbs backend numerics (CPU vs TPU) and
+exactly; the loose tail tolerance absorbs backend numerics (CPU vs GPU) and
 future kernel swaps (BVH/Pallas) which must not change path outcomes.
 """
 

@@ -91,7 +91,7 @@ def test_grads_finite_all_scenes():
 
     for p in sorted(pathlib.Path("/root/reference/scenes").glob("*.urn")):
         if p.stem == "test1":
-            continue  # 258 prims: slow on CPU; covered by TPU bench configs
+            continue  # 258 prims: slow on CPU
         scene, loss = make_loss(str(p), w=16, h=12, n=1)
         params = get_params(scene)
         g = jax.grad(loss)(params)

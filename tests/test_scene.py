@@ -162,25 +162,18 @@ def test_draw_text():
 
 def test_mesh1_beyond_old_stream_ceiling():
     """scenes/mesh1.urn (20,483 primitives: 20,480-tri asteroid + floor +
-    mirror sphere + area light) exceeds the round-3 streaming-kernel cap
-    of 16,384 — it must load, qualify for the (raised, r4) streaming
-    megakernel, and render finitely through the XLA oracle path."""
+    mirror sphere + area light) must load, pack one closest-hit kernel
+    table per primitive type, and render finitely."""
     import jax
     import numpy as np
 
-    from plutracer_tpu.ops.pallas.integrator_kernel import (
-        MAX_P_STREAM,
-        megakernel_eligible,
-    )
     from plutracer_tpu.render.renderer import render
     from plutracer_tpu.scene import compile_scene, load_scene_file
-    from plutracer_tpu.semantics import DEFAULT_OPTIONS
 
     s = compile_scene(load_scene_file("scenes/mesh1.urn", ["/res", "16x16"]))
     P = s.prim_type.shape[0]
     assert P > 16384, P
-    assert P <= MAX_P_STREAM
-    assert megakernel_eligible(s, DEFAULT_OPTIONS)
+    assert s.prims_packed.tri.shape[1] >= 20480
     img = np.asarray(render(s, 16, 16, 1, jax.random.PRNGKey(0)))
     assert np.isfinite(img).all()
     assert img.max() > 0.0

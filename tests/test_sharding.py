@@ -12,8 +12,8 @@ from plutracer_tpu.scene import compile_scene, load_scene_file
 
 
 @pytest.fixture(scope="module")
-def scene():
-    d = load_scene_file("/root/reference/scenes/minimal1.urn", ["/res", "32x24"])
+def scene(scenes_dir):
+    d = load_scene_file(str(scenes_dir / "demo-box.urn"), ["/res", "32x24"])
     return compile_scene(d)
 
 
@@ -105,13 +105,12 @@ def test_gradients_flow_to_emission(scene, eight_devices):
     assert float(jnp.abs(g["mat_color"]).max()) > 0
 
 
-def test_no_sanitized_gradient_lanes_cpu(eight_devices):
+def test_no_sanitized_gradient_lanes_cpu(eight_devices, scenes_dir):
     """The flagship train step must not rely on the non-finite gradient
-    sanitizer on CPU: every zeroed entry is a wasted/biased step. (On TPU
-    at max_bounces=8 an XLA scan-backward issue still NaNs a fraction of
-    steps — counted and surfaced via step.many / stats_out; see
-    sharded.shard_loss_grad. This test pins the CPU baseline at exactly
-    zero so our own graph can't regress into producing them.)"""
+    sanitizer: every zeroed entry is a wasted/biased step. Non-finite
+    gradient entries are counted and surfaced via step.many / stats_out
+    (sharded.shard_loss_grad); this test pins the count at exactly zero so
+    the graph can't regress into producing them."""
     import jax
     import numpy as np
 
@@ -121,9 +120,7 @@ def test_no_sanitized_gradient_lanes_cpu(eight_devices):
     from plutracer_tpu.scene import compile_scene, load_scene_file
 
     scene = compile_scene(
-        load_scene_file(
-            "/root/reference/scenes/cornell-box.urn", ["/res", "32x32"]
-        )
+        load_scene_file(str(scenes_dir / "demo-box.urn"), ["/res", "32x32"])
     )
     target = np.asarray(render(scene, 32, 32, 2, jax.random.PRNGKey(5)))
     step = make_train_step(

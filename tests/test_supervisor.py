@@ -1,7 +1,7 @@
 """Failure detection / elastic recovery (SURVEY §5).
 
 The reference loses partial renders on any failure (src/main.cpp — bare
-exceptions, no retry, no checkpoints). These tests drive the TPU-native
+exceptions, no retry, no checkpoints). These tests drive the
 replacement end-to-end through REAL subprocess failures: injected crashes
 (exit 13 with un-checkpointed work lost), injected hangs (heartbeat-stall
 kill), and elastic resume on a SMALLER device mesh — asserting the final
@@ -13,6 +13,8 @@ process, so worker-to-worker is the apples-to-apples comparison — the
 in-process elastic-vs-render equivalence is asserted separately below.
 """
 
+import pathlib
+
 import jax
 import numpy as np
 import pytest
@@ -23,7 +25,8 @@ from plutracer_tpu.render.renderer import render
 from plutracer_tpu.render.supervisor import supervise_render
 from plutracer_tpu.scene import compile_scene, load_scene_file
 
-SCENE = "/root/reference/scenes/minimal0.urn"
+SCENE = str(pathlib.Path(__file__).resolve().parent.parent
+            / "scenes" / "demo-box.urn")
 W, H, N, SEED = 16, 12, 3, 7  # 9 passes; chunks land at 4/8/9
 
 

@@ -31,7 +31,7 @@ SCENES = pathlib.Path("/root/reference/scenes")
 
 W, H, N, SEED = 64, 48, 2, 42
 # per-scene resolution overrides: the CPU brute-force oracle is O(B x P),
-# so the 102k-prim HBM-tier scene gets a smaller golden (64x48 measured
+# so the 102k-prim scene gets a smaller golden (64x48 measured
 # ~30 min per render on CPU; 24x18 is ~100 s). The golden test renders
 # at whatever resolution the stored golden has.
 RES_OVERRIDE = {"repo-mesh2": (24, 18)}

@@ -81,8 +81,7 @@ QUICK_CONFIGS = [
 ]
 # BASELINE.md target configs (full-scale): run with --baseline. At these
 # spp the oracle self-noise shrinks ~1/sqrt(spp), so the same NOISE_FACTOR
-# yields much sharper bounds than the 128^2 gate above. On a TPU host our
-# render goes through the Pallas megakernel (the default TPU path).
+# yields much sharper bounds than the 128^2 gate above.
 BASELINE_CONFIGS = [
     ("cornell-box.urn", 512, 512, 32),  # 1024 spp
     ("room.urn", 512, 512, 16),  # 256 spp
@@ -204,8 +203,7 @@ def update_md(results, baseline: bool = False) -> None:
         base_body = (
             "\nGate: `python tools/parity.py --baseline` — BASELINE.md "
             "full-scale\nconfigs, same statistical methodology; our render "
-            f"ran on the `{jax.default_backend()}` backend\n(on TPU that is "
-            "the Pallas integrator megakernel for every config below).\n\n"
+            f"ran on the `{jax.default_backend()}` backend.\n\n"
             + format_table(results)
             + "\n"
         )

@@ -3,8 +3,7 @@
 Counterpart of the instrumented reference build (tools/refbuild/build_dump.sh):
 writes <base>.linear.f32 (H, W, 3) and <base>.terms.f32 (H, W, 3, 8, 3) in the
 same layout, so tools/term_diff.py can diff the two integrators contribution
-site by contribution site. Always runs the XLA integrator (the megakernel is
-already pinned equivalent to it — tests/test_megakernel.py).
+site by contribution site.
 
 Usage: python tools/term_dump.py SCENE.urn OUT_BASE [--res 512] [--smp 16]
        [--seed 0]   (smp is N: spp = N^2, matching the reference CLI)
@@ -30,7 +29,7 @@ def main():
     ap.add_argument("--res", type=int, default=512)
     ap.add_argument("--smp", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--platform", default=None, help="cpu | tpu (default: ambient)")
+    ap.add_argument("--platform", default=None, help="cpu | gpu (default: ambient)")
     args = ap.parse_args()
 
     import functools
@@ -51,7 +50,7 @@ def main():
     W = H = args.res
     n = args.smp
     spp = n * n
-    options = DEFAULT_OPTIONS.replace(integrator_backend="xla")
+    options = DEFAULT_OPTIONS
     scene = compile_scene(
         load_scene_file(args.scene, ["/res", f"{W}x{H}", "/smp", str(n)])
     )
